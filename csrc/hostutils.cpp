@@ -3,9 +3,9 @@
 // The reference repo's host side (main.cu [RECON, SURVEY.md §2.2]) does data
 // initialization, a CPU oracle sort for verification, and timing. This is
 // that runtime, implemented natively and multithreaded so it keeps up with
-// TPU-scale inputs (1B keys): a threaded xoshiro256** key generator, the
+// contract-scale inputs (1B keys): a threaded xoshiro256** key generator, the
 // canonical CPU LSD radix sort (8-bit digits, histogram -> exclusive scan ->
-// stable scatter — the same pipeline the device kernels implement), pair
+// stable scatter — the same pipeline as the device `reference` engine), pair
 // sorting, and bit-exact verification.
 //
 // Exposed through ctypes (cuda/radixsort_tpu/utils/native.py). No Python.h

@@ -1,30 +1,27 @@
-"""cuda.radixsort_tpu — a TPU-native vectorized query-execution engine.
+"""cuda.radixsort_tpu — a vectorized query-execution engine in JAX.
 
-A brand-new TPU-first framework (JAX / XLA / Pallas / shard_map) with the
-capabilities of the reference CUDA LSD radix sort (truongchauhien/CUDA.RadixSort,
-canonical form: CUB DeviceRadixSort): the per-digit pipeline — per-tile digit
-histogram, exclusive prefix-scan over the striped spine, stable scatter —
-re-designed as Pallas kernels over HBM-resident column batches and generalized
-into a full operator set (radix partition, hash join, hash aggregate, predicate
-filter with selection vectors) scaled over a device mesh with a skew-aware,
-double-buffered all-to-all shuffle.
+A JAX / XLA / shard_map framework with the capabilities of the reference
+CUDA LSD radix sort (truongchauhien/CUDA.RadixSort, canonical form: CUB
+DeviceRadixSort), generalized into a full operator set (radix partition,
+sort-merge join, group-by aggregate, predicate filter with selection
+vectors) over device-resident column batches and scaled over a device mesh
+with a skew-aware all-to-all shuffle. The per-digit pipeline — per-tile
+digit histogram, exclusive prefix-scan over the striped spine, stable
+scatter — stays as the 'reference' engine; the default engine is XLA's own
+sort, which XLA:GPU lowers to CUB's radix sort where it can.
 
 Public API (reference parity: CUB `device_radix_sort.cuh`, thrust `sort.h`):
     sort, sort_pairs, argsort       — stable radix sort (keys / key-value)
-    SortConfig, preset              — tuning policy (analogue of the CUB policy hub)
+    SortConfig                      — engine choice (analogue of the CUB policy hub)
 """
 
 from cuda.radixsort_tpu.config import (  # noqa: F401
-    LANES,
     SortConfig,
-    best_engine,
-    preset,
     resolve,
 )
 from cuda.radixsort_tpu.ops.sort import (  # noqa: F401
     argsort,
     sort,
-    sort_large,
     sort_pairs,
     sort_struct,
 )

@@ -1,31 +1,17 @@
-"""Sort/operator configuration — the TPU-native analogue of the reference's
-compile-time tuning policy hub (CUB ``dispatch/tuning/tuning_radix_sort.cuh:358-1063``,
-which selects radix bits, block geometry and rank/scan algorithms per SM arch).
+"""Sort/operator configuration — the analogue of the reference's tuning
+policy hub (CUB ``dispatch/tuning/tuning_radix_sort.cuh:358-1063``), reduced
+to what the engines here read.
 
-Here a small frozen dataclass, resolved at trace time, plays that role: digit
-width, tile geometry (rows x 128 lanes), engine selection and per-TPU-generation
-presets. Everything is static so the whole pipeline stays jit-compilable.
-
-Knob -> kernel mapping (the policy hub is real: every field changes a
-compiled kernel variant):
-  * radix_bits: Pallas stage digit width. <=3 -> 2-bit stages (ONE packed
-    counter word, ~2.5x cheaper per stage — wins for 1-2-stage partition
-    ops); >=4 -> 4-bit stages (the full-sort sweet spot; wider digits do
-    not pay — the in-row packed 8-bit counter fields top out at 16
-    buckets). The pure-jnp reference engine honors any width.
-  * stage_rows: Pallas stage-kernel tile rows.
-  * log_tile / log_merge: bitonic network geometry (kernels/bitonic.py).
-  * tile_rows: reference-engine (oracle) tile geometry.
+A small frozen dataclass, resolved at trace time: the engine, plus the digit
+width and tile size of the reference engine. Everything is static so the
+whole pipeline stays jit-compilable.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
-import jax
-
-LANES = 128  # TPU vector lane count — last dim of every tile.
+ENGINES = ("auto", "xla", "reference")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,30 +19,25 @@ class SortConfig:
     """Static configuration for one sort/partition invocation.
 
     Attributes:
-      radix_bits: digit width in bits (CUB uses 5-8; we default to 8 =>
-        256 bins, one full vreg row of histogram per tile).
-      tile_rows: sublane rows per tile; tile holds ``tile_rows * LANES`` keys.
-      engine: 'auto' | 'pallas' | 'reference' | 'xla'.
-        - pallas: the fast TPU kernels.
-        - reference: pure-jnp pipeline with the exact same tile/spine layout
-          (the semantics oracle; runs anywhere).
-        - xla: jax.lax.sort-based fallback (trivially correct; the "thrust
-          merge-sort path" analogue for unsupported configurations).
-      interpret: run Pallas kernels in interpreter mode (CPU CI).
+      radix_bits: reference-engine digit width in bits (CUB uses 5-8; the
+        default 8 gives 256 bins).
+      tile_rows: reference-engine tile height; a tile holds
+        ``tile_rows * 128`` keys, one spine entry per (digit, tile).
+      engine: 'auto' | 'xla' | 'reference'.
+        - xla: stable ``jax.lax.sort`` over the key limbs (XLA:GPU hands
+          single-key sorts to CUB's radix sort). 'auto' resolves to it.
+        - reference: pure-jnp LSD pipeline (histogram, spine scan, scatter)
+          — the semantics oracle; runs anywhere.
     """
 
     radix_bits: int = 8
     tile_rows: int = 64
     engine: str = "auto"
-    interpret: bool = False
-    # Pallas stage-kernel tile rows (tile = stage_rows * 128 keys). 256 is
-    # the measured v5e sweet spot; smaller tiles trade VPU work for more
-    # grid steps (useful on smaller inputs / interpret-mode CI).
-    stage_rows: int = 256
-    # Bitonic engine geometry (None = measured per-size auto): sort-kernel
-    # tile log2 and merge-kernel block log2 (kernels/bitonic.py).
-    log_tile: int | None = None
-    log_merge: int | None = None
+
+    def __post_init__(self):
+        if self.engine not in ENGINES:
+            raise ValueError(
+                f"engine must be one of {ENGINES}; got {self.engine!r}")
 
     @property
     def num_bins(self) -> int:
@@ -64,106 +45,16 @@ class SortConfig:
 
     @property
     def tile_elems(self) -> int:
-        return self.tile_rows * LANES
+        return self.tile_rows * 128
 
     def replace(self, **kw) -> "SortConfig":
         return dataclasses.replace(self, **kw)
 
 
-@functools.cache
-def default_backend() -> str:
-    return jax.default_backend()
-
-
-def best_engine(platform: str | None = None) -> str:
-    """Fastest full-sort engine for the platform.
-
-    TPU: 'bitonic' — the Pallas comparison-network engine (kernels/bitonic.py),
-    measured 3.5x over lax.sort @2^24 and 3.1x @2^26 on v5e for keys-only
-    full-range sorts; configurations it cannot serve (pairs, argsort, bit
-    ranges, 64-bit keys) fall back to the stable lax.sort path inside
-    ops/sort.py. Elsewhere (CPU CI): 'xla'. The Pallas radix engine owns
-    partitioning / stability-critical configs.
-    """
-    platform = platform or default_backend()
-    return "bitonic" if platform == "tpu" else "xla"
-
-
-def for_partition(cfg: SortConfig, bits: int | None = None) -> SortConfig:
-    """Engine/width override for 1-2-stage partition-class ops (filter,
-    partition, selection vectors): the bitonic engine cannot serve bit-range
-    configs (it would silently fall back to lax.sort), while the Pallas
-    radix stage is the measured winner (filter @2^24: 8.0 ms with 2-bit
-    stages vs 16.7 ms 4-bit vs 50.1 ms lax.sort on v5e). Ops that need
-    <= 2 key bits therefore force the 2-bit stage variant (ONE packed
-    counter word — ~2.1x cheaper per pass). Explicit 'xla'/'reference'
-    engine choices are respected."""
-    if cfg.engine == "bitonic":
-        cfg = cfg.replace(engine="pallas")
-    if bits is not None and bits <= 2 and cfg.engine == "pallas":
-        cfg = cfg.replace(radix_bits=2)
-    return cfg
-
-
-@functools.cache
-def device_kind() -> str:
-    """Accelerator generation string, e.g. 'TPU v5 lite' / 'TPU v5p' /
-    'TPU v6 lite' (empty off-accelerator)."""
-    try:
-        return jax.devices()[0].device_kind
-    except Exception:  # pragma: no cover - no backend at all
-        return ""
-
-
-# Per-generation policy table — the moral equivalent of CUB's chained
-# Policy500..Policy1000 (tuning_radix_sort.cuh:358-1063). Provenance:
-#   v5e: every knob swept on the attached v5 lite chip (NOTES rounds 1-2):
-#        4-bit stages + 256-row tiles for the radix stage kernel; bitonic
-#        geometry left on per-size auto (lt=16/lm=20 measured best at
-#        2^24, lm 21 at 2^26+ — the auto encodes that size dependence).
-#   v5p: UNMEASURED starting point (no v5p hardware this round). Same
-#        geometry as v5e: identical 8x128 VPU lane shape and VMEM-class
-#        budget; the higher HBM bandwidth shifts the compute/bandwidth
-#        balance but not the lane-geometry-driven tile shapes. Revisit
-#        with scripts/sweep (tests compile it).
-#   v6e: UNMEASURED starting point (no v6e hardware). Same geometry —
-#        v6 lite keeps the 8x128 lane shape and VMEM size class.
-_GEN_PRESETS = {
-    "v5e": dict(radix_bits=8, tile_rows=64, stage_rows=256,
-                log_tile=None, log_merge=None),
-    "v5p": dict(radix_bits=8, tile_rows=64, stage_rows=256,
-                log_tile=None, log_merge=None),
-    "v6e": dict(radix_bits=8, tile_rows=64, stage_rows=256,
-                log_tile=None, log_merge=None),
-}
-
-
-def generation(kind: str | None = None) -> str:
-    """Normalize a device_kind string to a preset-table key."""
-    k = (kind if kind is not None else device_kind()).lower()
-    if "v5 lite" in k or "v5e" in k or "v5lite" in k:
-        return "v5e"
-    if "v5p" in k or ("v5" in k and "lite" not in k):
-        return "v5p"
-    if "v6" in k:
-        return "v6e"
-    return "v5e"  # unknown TPU generations start from the measured table
-
-
-def preset(platform: str | None = None,
-           kind: str | None = None) -> SortConfig:
-    """Per-generation preset — keyed off jax.devices()[0].device_kind on
-    TPU (CUB Policy500..Policy1000 analogue); CPU gets the v5e geometry
-    with the xla engine (geometry only matters in interpret-mode CI)."""
-    platform = platform or default_backend()
-    knobs = _GEN_PRESETS[generation(kind) if platform == "tpu" else "v5e"]
-    return SortConfig(engine=best_engine(platform), **knobs)
-
-
 def resolve(config: SortConfig | None = None, **overrides) -> SortConfig:
-    cfg = config or preset()
+    cfg = config or SortConfig()
     if overrides:
         cfg = cfg.replace(**overrides)
     if cfg.engine == "auto":
-        cfg = cfg.replace(engine=preset().engine)
+        cfg = cfg.replace(engine="xla")
     return cfg

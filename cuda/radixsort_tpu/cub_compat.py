@@ -233,8 +233,7 @@ def _check_items(keys, num_items):
 # ---------------------------------------------------------------------------
 # The rest of the CUB device-wide suite. Selection/partition/unique ride the
 # framework's stable-partition compaction engine; scan/reduce map to XLA's
-# native cumsum/reduce (on TPU the compiler's fused scan IS the fast path —
-# re-implementing Blelchoch sweeps in Pallas would only be slower); merge and
+# native cumsum/reduce; merge and
 # histogram ride ops/merge.py and ops/histogram.py.
 #
 # Shape contract difference (platform, not hidden): CUB writes compacted
@@ -335,9 +334,8 @@ class DevicePartition:
         then items matching the second (of the rest), then the unselected —
         ALL three stably ordered.
 
-        TPU-native: ONE stable 2-bit radix pass on the category id (the
-        same counting-pass engine as the 1-bit filter), then dynamic rolls
-        align each part at index 0. Returns (first_part, second_part,
+        ONE stable sort on the category id (the same route as the 1-bit
+        filter), then dynamic rolls align each part at index 0. Returns (first_part, second_part,
         unselected, num_selected) with num_selected = (2,) int32 counts of
         the first two parts; each output is full length, valid in its
         prefix.
@@ -345,8 +343,6 @@ class DevicePartition:
         import jax
         import jax.numpy as jnp
 
-        from cuda.radixsort_tpu import config as config_lib
-        from cuda.radixsort_tpu.kernels.pipeline import stage_width
         from cuda.radixsort_tpu.ops.sort import sort_pairs
 
         x, _ = _unwrap(d_in)
@@ -357,9 +353,7 @@ class DevicePartition:
                                  select_second_part_op(x))
         cat = jnp.where(first, jnp.uint32(0),
                         jnp.where(second, jnp.uint32(1), jnp.uint32(2)))
-        cfg = config_lib.for_partition(config_lib.resolve(config), bits=2)
-        _, out = sort_pairs(cat, x, begin_bit=0,
-                            end_bit=max(2, stage_width(cfg)), config=cfg)
+        _, out = sort_pairs(cat, x, config=config)
         n1 = jnp.sum(first.astype(jnp.int32))
         n2 = jnp.sum(second.astype(jnp.int32))
         roll = lambda t, s: jax.tree_util.tree_map(
@@ -421,7 +415,7 @@ class DeviceHistogram:
         d_samples is (pixels, channels) or flat channel-interleaved; one
         histogram per active channel, each with its own levels. Channel
         de-interleave is a reshape — the per-channel histograms then run
-        on the one-hot MXU bincount like the single-channel op."""
+        on the same bincount as the single-channel op."""
         import jax.numpy as jnp
 
         from cuda.radixsort_tpu.ops.histogram import histogram_even
@@ -503,7 +497,7 @@ class DeviceMerge:
 
 class DeviceScan:
     """Parity: cub::DeviceScan (device_scan.cuh). XLA's fused cumulative
-    ops are the TPU-native spine scan — same role as RadixSortScanBinsKernel
+    ops are the spine scan — same role as RadixSortScanBinsKernel
     writ device-wide."""
 
     @staticmethod
@@ -702,7 +696,7 @@ class DeviceReduce:
         "max", or a traceable associative binary op.
 
         Returns (unique_keys, aggregates, num_runs) — outputs padded past
-        num_runs. TPU-native shape: one segmented inclusive scan (the run
+        num_runs. Shape: one segmented inclusive scan (the run
         total lands on each run's LAST slot, where the keys still equal the
         run's key), then one stable compaction of the run-end rows — no
         atomics, no per-run launches.
@@ -891,9 +885,8 @@ class DeviceTopK:
 
 class DeviceTransform:
     """Parity: cub::DeviceTransform (device_transform.cuh) — Transform over
-    N input sequences with a traceable op; XLA's fusion is the whole point
-    of this op on TPU (it exists in CUB to saturate bandwidth; here the
-    compiler fuses it into neighbors for free)."""
+    N input sequences with a traceable op (it exists in CUB to saturate
+    bandwidth; here XLA fuses it into neighbors for free)."""
 
     @staticmethod
     def Transform(d_inputs, transform_op, num_items: int | None = None,
@@ -913,7 +906,7 @@ class DeviceMergeSort:
     struct keys.
 
     Routing mirrors thrust smart_sort (THRUST sort.h:310-337): a less/greater
-    marker on a plain array takes the radix/bitonic engine; everything else
+    marker on a plain array takes the sort engine; everything else
     takes the comparator network (ops/comparator_sort.py). `SortKeysCopy` /
     `StableSortKeysCopy` alias the plain entry points — a functional backend
     always returns a copy."""
@@ -974,7 +967,7 @@ class DeviceMergeSort:
 class DeviceCopy:
     """Parity: cub::DeviceCopy (device_copy.cuh). CUB's Batched copies
     num_buffers independent ranges in one launch (a tail-latency play for
-    many small copies). The static-shape TPU analogue: all source ranges
+    many small copies). The static-shape analogue: all source ranges
     live in ONE flat array, all destination ranges in another, and the
     whole batch is a single fused gather — searchsorted attributes each
     output slot to its buffer, so ragged buffers cost nothing extra."""

@@ -21,7 +21,7 @@ def _rng_u32(seed: int, n: int) -> jnp.ndarray:
 
 
 def sort_u32(n: int = 1 << 20):
-    """Keys-only u32 sort — the headline config (bitonic engine on TPU)."""
+    """Keys-only u32 sort — the headline config."""
     import cuda.radixsort_tpu as rs
 
     def fn(keys):
@@ -127,7 +127,7 @@ def window_pipeline(n: int = 1 << 18):
 
 
 def outer_join_agg(n_probe: int = 1 << 18, n_build: int = 1 << 14):
-    """Full outer join feeding a grouped mean — the session-5 operator set
+    """Full outer join feeding a grouped mean — the outer-join operator set
     end-to-end (outer join -> decomposed aggregate)."""
     import cuda.radixsort_tpu as rs
     from cuda.radixsort_tpu.ops.join import join

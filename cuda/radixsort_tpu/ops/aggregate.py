@@ -1,8 +1,8 @@
 """Group-by aggregation (count/sum/min/max) — sort + segmented scan.
 
-TPU-native design (BASELINE.json:10): hash-table aggregation needs scatter
-(dead on TPU); instead rows are radix-sorted by group key and per-group
-reductions are SEGMENTED SCANS (associative, log-step, no gathers):
+Sort-based design (BASELINE.json:10): rows are sorted by group key and
+per-group reductions are SEGMENTED SCANS (associative, log-step, no
+gathers):
 
   sorted keys -> segment starts (neighbor compare) -> reversed segmented
   inclusive scan puts each segment's TOTAL at its START row -> compact the
@@ -65,9 +65,9 @@ def _segment_end_pos(is_start):
     n = is_start.shape[0]
     pos = jnp.arange(n, dtype=jnp.int32)
     is_end = jnp.concatenate([is_start[1:], jnp.ones((1,), bool)])
-    from cuda.radixsort_tpu.ops.scan import plain_scan_fast
+    from cuda.radixsort_tpu.ops.scan import cumulative
 
-    filled_rev = plain_scan_fast(
+    filled_rev = cumulative(
         jnp.where(is_end[::-1], pos, -1), "max")  # pos is the REVERSED index
     return (n - 1) - filled_rev[::-1]
 
@@ -75,14 +75,12 @@ def _segment_end_pos(is_start):
 def _segmented_total_at_start(values, is_start, agg):
     """out[i] = reduce of i's segment, valid at segment-start rows.
 
-    Gather-free (r3 rewrite): the XLA elementwise gather runs at
-    ~0.11 G rows/s on this TPU (NOTES) and dominated groupby/quantile.
-    count is pure position arithmetic (end_pos - pos + 1 at start rows);
+    Gather-free: count is pure position arithmetic (end_pos - pos + 1 at
+    start rows);
     sum/min/max ride a REVERSED segmented scan — an inclusive scan of the
     flipped array restarting at flipped segment ENDS accumulates each
     segment back-to-front, so the original start row holds the full
-    total. segmented_scan auto-routes to the one-read-one-write Pallas
-    kernel on TPU (kernels/scan.py)."""
+    total."""
     from cuda.radixsort_tpu.ops.scan import segmented_scan
 
     if agg == "count":
@@ -131,10 +129,7 @@ def groupby(
     if n == 0:  # empty-input shortcut (CUB dispatch_radix_sort.cuh:1055)
         return keys, values, jnp.zeros((), jnp.int32)
     if valid is None:
-        # every _AGGS reduction is order-independent within a group, so the
-        # grouping sort may be UNSTABLE: the tie-safe 2-plane network (no
-        # idx plane) — measured +59% over the stable 3-plane path @2^25
-        skeys, svals = _sort_pairs(keys, values, config=cfg, stable=False)
+        skeys, svals = _sort_pairs(keys, values, config=cfg)
         valid_sorted = None
     else:
         from cuda.radixsort_tpu.ops.sort import sort_struct as _sort_struct
@@ -165,9 +160,6 @@ def groupby(
     else:
         totals = _segmented_total_at_start(svals, is_start, agg)
     keep = is_start if valid_sorted is None else (is_start & valid_sorted)
-    # NB: unlike join/query, this compaction keeps the Pallas stage —
-    # measured 40.1 ms vs 47.5 ms with the xla filter @2^22 (the scan chain
-    # above offers less fusion benefit than join's sort+gather context)
     (gk, gv), count = _filter_columns(
         keep, (skeys, totals), config=cfg
     )
@@ -305,16 +297,14 @@ def _groupby_quantile(
         valid_sorted = sorted_cols[0] == 0
     is_start = _group_starts(skeys, valid_sorted)
     pos = jnp.arange(n, dtype=jnp.int32)
-    from cuda.radixsort_tpu.ops.scan import plain_scan_fast
+    from cuda.radixsort_tpu.ops.scan import cumulative
 
-    start = plain_scan_fast(jnp.where(is_start, pos, -1), "max")
+    start = cumulative(jnp.where(is_start, pos, -1), "max")
     # gather-free selection (r3): rank-in-segment and segment size are
     # pure position arithmetic, valid at EVERY row; the quantile's floor/
     # ceil-rank rows are marked in place and their values transported back
     # to the segment-start row by a reversed segmented max (exactly one
-    # marked row per segment) — the former jnp.take formulation paid
-    # ~0.11 G rows/s per full-length TPU gather (2 per q + 1 for counts:
-    # 262 ms @4M; this path measures in the tens of ms).
+    # marked row per segment).
     r = pos - start
     cnt_row = _segment_end_pos(is_start) - start + 1
     md = _mean_dtype(values.dtype)

@@ -5,9 +5,8 @@ StableSortPairs} (CUB device/device_merge_sort.cuh) and thrust smart_sort's
 merge-sort fallback (THRUST system/cuda/detail/sort.h:333-337): keys that are
 NOT radix-sortable — struct keys, user comparators — take a comparison sort.
 
-TPU-native design. `lax.sort` exposes only the platform's fixed total order
-and Mosaic has no scatter, so the general-comparator path is a *normalized
-bitonic network in pure jnp*: log2(p)*(log2(p)+1)/2 compare-exchange stages,
+Design. `lax.sort` exposes only the platform's fixed total order, so the
+general-comparator path is a *normalized bitonic network in pure jnp*: log2(p)*(log2(p)+1)/2 compare-exchange stages,
 each one vectorized as an index-XOR partner gather plus elementwise selects
 (XLA fuses a stage into one kernel; there is no data-dependent control flow,
 so the whole network jits on any backend). Sorting networks order correctly
@@ -17,7 +16,7 @@ so every compare-exchange decision is consistent on both lanes of a pair.
 
 This is a capability/parity path with O(n log^2 n) gathers — for arithmetic
 keys under plain less/greater the engine router (thrust_compat.sort,
-cub_compat.DeviceMergeSort) sends callers to the radix/bitonic fast path
+cub_compat.DeviceMergeSort) sends callers to the radix-sort fast path
 instead, exactly as thrust's `can_use_primitive_sort` does (sort.h:310-326).
 """
 
@@ -52,7 +51,7 @@ greater = Greater()
 
 def primitive_comparator(comp) -> tuple[bool, bool]:
     """(is_primitive, descending) — whether `comp` is a less/greater marker
-    so callers can take the radix/bitonic engine instead of the network."""
+    so callers can take the sort engine instead of the network."""
     if isinstance(comp, Less) or comp is Less:
         return True, False
     if isinstance(comp, Greater) or comp is Greater:

@@ -1,10 +1,9 @@
 """Predicate filter with selection vectors (BASELINE.json:5).
 
-TPU-native compaction: there is no efficient scatter on TPU, so compaction
-is a STABLE 1-BIT PARTITION by the negated predicate (kept rows first) —
-the same counting-pass machinery as the sort (a 1-bit LSD pass). Output is
-fixed-shape (XLA requires static shapes): compacted columns padded at the
-tail plus the valid-row count.
+Compaction is a STABLE 1-BIT PARTITION by the negated predicate (kept rows
+first) — the same sort machinery as everything else (a 1-bit key). Output
+is fixed-shape (XLA requires static shapes): compacted columns padded at
+the tail plus the valid-row count.
 """
 
 from __future__ import annotations
@@ -15,22 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from cuda.radixsort_tpu import config as config_lib
-from cuda.radixsort_tpu.kernels.pipeline import stage_width as _stage_width
 from cuda.radixsort_tpu.ops.sort import sort_pairs as _sort_pairs
-
-
-def compaction_config(cfg, n: int):
-    """Engine for composite-op compactions (joins/pipelines): the Pallas
-    1-bit stage from 2^20 rows on TPU (the XLA gather path runs at the
-    ~0.07-0.11 G rows/s TPU gather floor — r5 elision audit: 4M query
-    75.9 vs 122.9 ms, 234M join chunk 1.08 vs 12.9 s), the fused XLA path
-    below; the reference engine passes through for oracle runs."""
-    if cfg.engine == "reference":
-        return cfg
-    if (n >= (1 << 20) and config_lib.default_backend() == "tpu"
-            and not cfg.interpret):
-        return cfg.replace(engine="pallas")
-    return cfg.replace(engine="xla")
 
 
 @functools.partial(jax.jit, static_argnames=("config",))
@@ -39,14 +23,10 @@ def selection_vector(mask: jnp.ndarray,
     """mask (N,) bool -> (sel (N,) int32, count). sel[:count] are the indices
     of rows where mask is True, in order; sel[count:] are the dropped rows'
     indices (a permutation — usable to invert the filter)."""
-    cfg = config_lib.for_partition(config_lib.resolve(config), bits=1)
     n = mask.shape[0]
     key = jnp.where(mask, jnp.uint32(0), jnp.uint32(1))
     idx = jnp.arange(n, dtype=jnp.int32)
-    # end_bit = the stage digit width (not 1): the key is already 0/1 and a
-    # width-aligned range keeps it to ONE pass with no pre-mask copy plane
-    _, sel = _sort_pairs(key, idx, begin_bit=0, end_bit=_stage_width(cfg),
-                         config=cfg)
+    _, sel = _sort_pairs(key, idx, config=config)
     count = jnp.sum(mask.astype(jnp.int32))
     return sel, count
 
@@ -60,9 +40,7 @@ def filter_columns(mask: jnp.ndarray, columns,
     are the rows where mask was True, in their original order; tail rows are
     the dropped rows (NOT zeroed — slice or mask with count).
     """
-    cfg = config_lib.for_partition(config_lib.resolve(config), bits=1)
     key = jnp.where(mask, jnp.uint32(0), jnp.uint32(1))
-    _, out = _sort_pairs(key, columns, begin_bit=0,
-                         end_bit=_stage_width(cfg), config=cfg)
+    _, out = _sort_pairs(key, columns, config=config)
     count = jnp.sum(mask.astype(jnp.int32))
     return out, count

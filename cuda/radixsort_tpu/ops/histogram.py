@@ -5,12 +5,10 @@ Reference parity: cub::DeviceHistogram::{HistogramEven, HistogramRange}
 histogram (the upsweep/onesweep-histogram product, agent_radix_sort_
 histogram.cuh) exposed as a public operator.
 
-TPU-native design: digit histograms ride the fused all-positions Pallas
-kernel (`kernels/histogram.py:digit_histograms` — one read of the keys);
-general binned histograms compute a bin index per sample on the VPU and
-reduce with a one-hot matmul for small bin counts (the MXU is the fastest
-bincount on this hardware — SURVEY §7.3) or XLA scatter-add for large ones.
-Out-of-range samples are dropped, matching CUB's semantics.
+Every histogram computes a bin index per sample and counts with
+`_bincount`: a one-hot reduction for small bin counts, XLA's scatter-add
+(atomics on the GPU) for large ones. Out-of-range samples are dropped,
+matching CUB's semantics.
 """
 
 from __future__ import annotations
@@ -20,7 +18,6 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from cuda.radixsort_tpu import config as config_lib
 from cuda.radixsort_tpu import twiddle
 
 # above this many bins the (N, bins) one-hot product stops fitting the
@@ -32,8 +29,8 @@ def _bincount(idx: jnp.ndarray, valid: jnp.ndarray, nbins: int) -> jnp.ndarray:
     """Count idx values in [0, nbins) where valid; returns (nbins,) int32."""
     idx = jnp.where(valid, idx, nbins)  # park invalid rows out of range
     if nbins <= _ONEHOT_MAX_BINS:
-        # one-hot matmul bincount: rows of the (N, bins) indicator summed on
-        # the MXU; XLA fuses the indicator into the reduction
+        # one-hot bincount: XLA fuses the (N, bins) indicator into the
+        # column reduction
         oh = (idx[:, None] == jnp.arange(nbins, dtype=idx.dtype)[None, :])
         return jnp.sum(oh, axis=0, dtype=jnp.int32)
     return jnp.zeros((nbins,), jnp.int32).at[idx].add(
@@ -41,13 +38,12 @@ def _bincount(idx: jnp.ndarray, valid: jnp.ndarray, nbins: int) -> jnp.ndarray:
     )
 
 
-@functools.partial(jax.jit, static_argnames=("begin_bit", "bits", "config"))
+@functools.partial(jax.jit, static_argnames=("begin_bit", "bits"))
 def digit_histogram(
     keys: jnp.ndarray,
     *,
     begin_bit: int = 0,
     bits: int = 8,
-    config: config_lib.SortConfig | None = None,
 ) -> jnp.ndarray:
     """Counts of each ``bits``-wide digit at ``begin_bit`` in twiddle space
     (the order-preserving unsigned bit space the sort runs in) — the public
@@ -57,29 +53,11 @@ def digit_histogram(
     if not (0 <= begin_bit < width and begin_bit + bits <= width):
         raise ValueError(f"bad digit range [{begin_bit}, {begin_bit + bits}) "
                          f"for {keys.dtype}")
-    cfg = config_lib.resolve(config)
     b = twiddle.twiddle_in(keys)
     digits = (b >> jnp.asarray(begin_bit, b.dtype)) & jnp.asarray(
         (1 << bits) - 1, b.dtype
     )
     n = keys.shape[0]
-    on_tpu = config_lib.default_backend() == "tpu"
-    if bits <= 7 and n >= (1 << 16) and (on_tpu or cfg.interpret):
-        from cuda.radixsort_tpu.kernels.histogram import digit_histograms
-
-        d32 = digits.astype(jnp.uint32)
-        rows = -(-n // 128)
-        rows = -(-rows // 8) * 8  # kernel grid wants a multiple-of-8 rows
-        pad = rows * 128 - n
-        if pad:
-            d32 = jnp.concatenate([d32, jnp.zeros((pad,), jnp.uint32)])
-        hist = digit_histograms(
-            d32.reshape(rows, 128), n_stages=1, width=bits,
-            interpret=not on_tpu,
-        )[0]
-        if pad:
-            hist = hist.at[0].add(-pad)
-        return hist
     return _bincount(digits.astype(jnp.int32),
                      jnp.ones((n,), jnp.bool_), 1 << bits)
 

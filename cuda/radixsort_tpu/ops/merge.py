@@ -6,21 +6,11 @@ sorted runs (external sorts, incremental batches, distributed round tails).
 Semantics: stable two-way merge — equal keys keep input order, and ties
 across inputs keep all of `a`'s before `b`'s (MergePairs observably so).
 
-TPU-native design, two engines routed by size/backend (same philosophy as
-the sort's engine router, config.best_engine):
-
-* **Bitonic merge level** (TPU, large n): ascending `a` ++ reversed
-  ascending `b` is a bitonic sequence, so ONE network level — ~log(n)
-  compare-exchange stages riding the grouped-span + tile-merge Pallas
-  kernels (`kernels/bitonic.py:merge_sorted_planes_bitonic`) — finishes the
-  merge. ~2*log(n) ops/element versus the full sort's ~log^2(n)/2 stages.
-  Stability for pairs comes from a source-index tiebreak plane
-  (n_cmp = key_limbs + 1), exactly like the pairs sort path.
-* **Rank-scatter** (general): each element's output position is
-  `own_rank + searchsorted(other)` (left for `a`, right for `b` — the
-  stable tie order); the resulting bijection is applied with the same
-  `apply_permutation` scatter the counting sort uses. O(n log n) gather
-  compares, one permutation write — no full sort.
+Design — rank-scatter: each element's output position is
+`own_rank + searchsorted(other)` (left for `a`, right for `b` — the stable
+tie order); the resulting bijection is applied with the same
+`apply_permutation` scatter the reference sort engine uses. O(n log n)
+binary-search compares, one permutation write — no full sort.
 """
 
 from __future__ import annotations
@@ -32,13 +22,7 @@ import jax.numpy as jnp
 
 from cuda.radixsort_tpu import config as config_lib
 from cuda.radixsort_tpu import twiddle
-from cuda.radixsort_tpu.ops.sort import (
-    _key_to_limbs,
-    _limbs_to_key,
-    apply_permutation,
-)
-
-_SENT = jnp.uint32(0xFFFFFFFF)
+from cuda.radixsort_tpu.ops.sort import apply_permutation
 
 
 def _merge_ranks(abits: jnp.ndarray, bbits: jnp.ndarray):
@@ -53,43 +37,6 @@ def _merge_ranks(abits: jnp.ndarray, bbits: jnp.ndarray):
         abits, bbits, side="right"
     ).astype(jnp.int32)
     return ra, rb
-
-
-def _network_merge(a_limbs, b_limbs, extra_a, extra_b, n_cmp, cfg):
-    """Pad each side to 2^p, reverse side b (bitonic invariant: even block
-    ascending, odd block descending), run the single top merge level."""
-    from cuda.radixsort_tpu.kernels.bitonic import merge_sorted_planes_bitonic
-
-    na = a_limbs[0].shape[0]
-    nb = b_limbs[0].shape[0]
-    logp = max((max(na, nb) - 1).bit_length(), 10)
-    p = 1 << logp
-
-    def pad_tail(x):
-        return jnp.concatenate([x, jnp.full((p - x.shape[0],), _SENT, jnp.uint32)])
-
-    planes = [
-        jnp.concatenate([pad_tail(pa), pad_tail(pb)[::-1]])
-        for pa, pb in zip(a_limbs + extra_a, b_limbs + extra_b)
-    ]
-    out = merge_sorted_planes_bitonic(
-        planes, log_block=logp, n_cmp=n_cmp,
-        log_merge=cfg.log_merge, interpret=cfg.interpret,
-    )
-    return [o[: na + nb] for o in out]
-
-
-def _use_network(na: int, nb: int, cfg) -> bool:
-    runnable = config_lib.default_backend() == "tpu" or cfg.interpret
-    if not runnable:
-        return False
-    if cfg.interpret:
-        return True
-    p = 1 << max((max(na, nb) - 1).bit_length(), 10)
-    # one network level is cheap, but padding both sides to equal powers of
-    # two still costs HBM traffic: require the padded total to stay small
-    # relative to the real rows, and enough rows to amortize kernel launch
-    return 2 * p >= (1 << 22) and (2 * p) / (na + nb) < 1.7
 
 
 @functools.partial(jax.jit, static_argnames=("descending", "config"))
@@ -107,17 +54,11 @@ def merge_sorted(
     """
     if a.dtype != b.dtype:
         raise TypeError(f"key dtypes differ: {a.dtype} vs {b.dtype}")
-    cfg = config_lib.resolve(config)
     na, nb = a.shape[0], b.shape[0]
     if na == 0:
         return b
     if nb == 0:
         return a
-    a_limbs, _ = _key_to_limbs(a, descending, None, None)
-    b_limbs, _ = _key_to_limbs(b, descending, None, None)
-    if _use_network(na, nb, cfg):
-        out = _network_merge(a_limbs, b_limbs, [], [], len(a_limbs), cfg)
-        return _limbs_to_key(out, a.dtype, descending)
     abits = twiddle.twiddle_in(a, descending=descending)
     bbits = twiddle.twiddle_in(b, descending=descending)
     ra, rb = _merge_ranks(abits, bbits)
@@ -142,7 +83,6 @@ def merge_sorted_pairs(
     """
     if a_keys.dtype != b_keys.dtype:
         raise TypeError(f"key dtypes differ: {a_keys.dtype} vs {b_keys.dtype}")
-    cfg = config_lib.resolve(config)
     na, nb = a_keys.shape[0], b_keys.shape[0]
     a_leaves, tdef = jax.tree_util.tree_flatten(a_values)
     b_leaves, tdef_b = jax.tree_util.tree_flatten(b_values)
@@ -152,28 +92,6 @@ def merge_sorted_pairs(
         return b_keys, b_values
     if nb == 0:
         return a_keys, a_values
-
-    a_limbs, _ = _key_to_limbs(a_keys, descending, None, None)
-    b_limbs, _ = _key_to_limbs(b_keys, descending, None, None)
-    four_byte = all(jnp.dtype(p.dtype).itemsize == 4 for p in a_leaves)
-    n_planes = len(a_limbs) + 1 + len(a_leaves)
-    if four_byte and n_planes <= 4 and _use_network(na, nb, cfg):
-        # source-index tiebreak plane: a gets [0, na), b gets [na, na+nb) —
-        # global input order, so the network is a stable merge
-        ia = jnp.arange(na, dtype=jnp.uint32)
-        ib = jnp.arange(na, na + nb, dtype=jnp.uint32)
-        au = [p if p.dtype == jnp.uint32 else p.view(jnp.uint32) for p in a_leaves]
-        bu = [p if p.dtype == jnp.uint32 else p.view(jnp.uint32) for p in b_leaves]
-        out = _network_merge(
-            a_limbs, b_limbs, [ia] + au, [ib] + bu, len(a_limbs) + 1, cfg
-        )
-        k = len(a_limbs)
-        keys = _limbs_to_key(out[:k], a_keys.dtype, descending)
-        leaves = [
-            o if p.dtype == jnp.uint32 else o.view(p.dtype)
-            for o, p in zip(out[k + 1:], a_leaves)
-        ]
-        return keys, jax.tree_util.tree_unflatten(tdef, leaves)
 
     abits = twiddle.twiddle_in(a_keys, descending=descending)
     bbits = twiddle.twiddle_in(b_keys, descending=descending)

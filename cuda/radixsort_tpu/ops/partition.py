@@ -4,11 +4,8 @@ Stable k-bit bucket partition of rows by key (or key hash), returning the
 reordered columns plus bucket offsets. This is the reference's per-digit
 counting pass (histogram -> scan -> scatter) promoted to a public operator:
 it is what the distributed shuffle, hash join and aggregate build on
-(BASELINE.json:5,9,10).
-
-Partition runs ceil(bits/4) Pallas stages (kernels/stage.py) — measured
-10.7 ms per stage at 16M rows on v5e — versus a full sort's 8; this is the
-op where the radix machinery beats sort-based alternatives outright.
+(BASELINE.json:5,9,10). The bucket id is the sort key, restricted to its
+low `bits` bits.
 """
 
 from __future__ import annotations
@@ -53,19 +50,15 @@ def partition(
     int32 bucket boundaries: bucket b = rows [offsets[b], offsets[b+1]).
     values may be None or a pytree of equal-length arrays.
     """
-    cfg = config_lib.for_partition(config_lib.resolve(config), bits=bits)
     n = keys.shape[0]
     bkt = bucket_ids(keys, bits=bits, by_hash=by_hash)
-    width = twiddle.bit_width(bkt.dtype)
 
     # bucket ids occupy the LOW `bits` of bkt; sort by just those bits.
     payload = (keys, values) if values is not None else (keys,)
     skeys, pay = _sort_pairs(
-        bkt, payload, begin_bit=0, end_bit=bits, config=cfg
+        bkt, payload, begin_bit=0, end_bit=bits, config=config
     )
-    # offsets via binary search over the sorted ids (no scatter-add — XLA
-    # scatter is ~0.15 Gelem/s on TPU; 2**bits+1 searchsorted queries are
-    # log-n gathers over a handful of values).
+    # offsets via binary search over the sorted ids: 2**bits+1 queries
     queries = jnp.arange(1 << bits, dtype=skeys.dtype)
     offsets = jnp.concatenate(
         [

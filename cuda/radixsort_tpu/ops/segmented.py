@@ -1,7 +1,7 @@
 """Segmented radix sort — independent stable sort per segment.
 
 Parity: cub::DeviceSegmentedRadixSort (device_segmented_radix_sort.cuh;
-one block per segment, kernels/radix_sort.cuh:504-672). TPU-native design:
+one block per segment, kernels/radix_sort.cuh:504-672). Design:
 a segment id becomes the MOST-SIGNIFICANT limb of a composite key, so the
 whole batch sorts in ONE fused LSD pipeline — no per-segment launches, no
 load imbalance from ragged segments (a 1-element and a 1M-element segment
@@ -26,9 +26,9 @@ def _segment_ids(offsets: jnp.ndarray, n: int) -> jnp.ndarray:
     ind = jnp.zeros((n + 1,), jnp.uint32).at[offsets[1:-1]].add(
         1, mode="drop"
     )[:n]
-    from cuda.radixsort_tpu.ops.scan import plain_scan_fast
+    from cuda.radixsort_tpu.ops.scan import cumulative
 
-    return plain_scan_fast(ind.astype(jnp.int32), "sum").astype(jnp.uint32)
+    return cumulative(ind.astype(jnp.int32), "sum").astype(jnp.uint32)
 
 
 @functools.partial(
@@ -67,29 +67,17 @@ def segmented_sort(
     limbs, limb_bits = _key_to_limbs(keys, descending, begin_bit, end_bit)
 
     # full range = the caller gave no bit restriction (compare against the
-    # key dtype's own width, NOT 32 — u8/u16 keys yield (0, width) limb
-    # declarations and previously fell off the fast paths, r5 review)
+    # key dtype's own width, NOT 32 — u8/u16 keys yield (0, width) limbs)
     from cuda.radixsort_tpu import twiddle as _twiddle
 
     kw = _twiddle.bit_width(keys.dtype)
     full_range = ((begin_bit is None or begin_bit == 0)
                   and (end_bit is None or end_bit == kw))
-    if (cfg.engine == "bitonic" and values is None and len(limbs) == 1
-            and full_range):
-        # keys-only 32-bit: (segment, key) 2-plane lexicographic network —
-        # the segment plane stays ascending, the key limb carries the
-        # descending twiddle (ops/sort.py::_bitonic_planes pads/trims).
-        from cuda.radixsort_tpu.ops.sort import _bitonic_planes
-
-        out = _bitonic_planes([seg, limbs[0]], n, n_cmp=2, cfg=cfg)
-        return _limbs_to_key(out[1:], keys.dtype, descending)
-
     limbs = [seg] + limbs
-    # comparison engines (bitonic network / lax.sort) gain nothing from a
-    # narrow segment range — declaring it full-width (high bits are zero)
-    # keeps the config on the multi-plane fast path / skips masked copies;
-    # the radix engine keeps the tight width (fewer digit passes).
-    if cfg.engine in ("bitonic", "xla") and full_range:
+    # lax.sort gains nothing from a narrow segment range — declaring it
+    # full-width (high bits are zero) skips the masked copies; the
+    # reference radix engine keeps the tight width (fewer digit passes).
+    if cfg.engine == "xla" and full_range:
         limb_bits = [(0, 32)] + limb_bits
     else:
         limb_bits = [(0, seg_bits)] + limb_bits

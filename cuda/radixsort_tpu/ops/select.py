@@ -78,13 +78,11 @@ def top_k(keys: jnp.ndarray, k: int, *, largest: bool = True,
     ties = tb == tt              # threshold ties: take enough to fill k
     n_strict = jnp.sum(strictly.astype(jnp.int32))
     # rank ties by position: tie i kept iff (# ties before i) < k - n_strict
-    from cuda.radixsort_tpu.ops.scan import plain_scan_fast
+    from cuda.radixsort_tpu.ops.scan import cumulative
 
-    tie_rank = plain_scan_fast(ties.astype(jnp.int32), "sum") - 1
+    tie_rank = cumulative(ties.astype(jnp.int32), "sum") - 1
     keep = strictly | (ties & (tie_rank < (k - n_strict)))
     idx = jnp.arange(n, dtype=jnp.int32)
-    # keeps the Pallas stage: select is histogram math, there is no big
-    # sort to fuse with (xla filter measured 2.2x slower here — NOTES r2)
     (fk, fi), _ = filter_columns(keep, (keys, idx), config=config)
     vals, inds = fk[:k], fi[:k]
     if sorted_result:

@@ -7,11 +7,11 @@ intersection keeps min(m, n) copies, the union max(m, n), the difference
 max(m - n, 0) — and the copies kept are the FIRST occurrences from `a`
 (union takes a's copies first, then b's surplus).
 
-TPU-native design: these are sequential two-cursor algorithms on a CPU; here
+Design: these are sequential two-cursor algorithms on a CPU; here
 every element's fate is decided independently from two `searchsorted` ranks
 (occurrence index within its own equal-run vs the other side's run length),
 then kept rows are compacted with the stable filter engine and combined with
-the bitonic/rank merge — no sequential state anywhere, everything jits.
+the rank merge — no sequential state anywhere, everything jits.
 """
 
 from __future__ import annotations
@@ -75,8 +75,7 @@ def set_difference(a, b, *, descending: bool = False,
 def _merge_keep_compact(ab, keep_a, bb, keep_b, config):
     """Merge the two (fully sorted) inputs with their keep-masks riding as a
     payload plane, then compact kept rows to a prefix. NO sentinel keys — a
-    dropped row may legitimately hold the maximum key value (the VERDICT r1
-    #2 lesson), so the mask travels as data and one stable compaction
+    dropped row may legitimately hold the maximum key value, so the mask travels as data and one stable compaction
     finishes the job. One merge + one compaction total."""
     from cuda.radixsort_tpu.ops.merge import merge_sorted_pairs
 

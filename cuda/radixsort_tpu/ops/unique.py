@@ -6,10 +6,10 @@ encode.cuh) — the standard companions of DeviceRadixSort (sort -> dedup /
 histogram of runs). CUB's semantics are *consecutive* dedup: only adjacent
 equal keys collapse, so `unique(sort(x))` is the distinct-value set.
 
-TPU-native design: run boundaries are a vectorized neighbor compare (one
-elementwise pass), and compaction rides the same stable 1-bit-partition
-engine as the predicate filter (`ops/filter.py`) — there is no scatter on
-the VPU, so "select" is a partition keyed on the boundary mask. Outputs are
+Design: run boundaries are a vectorized neighbor compare (one elementwise
+pass), and compaction rides the same stable 1-bit-partition engine as the
+predicate filter (`ops/filter.py`), so "select" is a partition keyed on the
+boundary mask. Outputs are
 fixed-shape (XLA static shapes): padded arrays plus a valid count, the same
 contract as `filter_columns`.
 """

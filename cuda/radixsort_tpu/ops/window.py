@@ -36,8 +36,7 @@ _SCAN_OP = {"cumsum": "sum", "cummin": "min", "cummax": "max"}
 
 
 @functools.partial(
-    jax.jit, static_argnames=("outputs", "descending", "config",
-                              "scan_engine")
+    jax.jit, static_argnames=("outputs", "descending", "config")
 )
 def window(
     part: jnp.ndarray,
@@ -47,7 +46,6 @@ def window(
     *,
     valid: jnp.ndarray | None = None,
     descending: bool = False,
-    scan_engine: str = "auto",
     config: config_lib.SortConfig | None = None,
 ):
     """Compute window columns over partitions of `part` ordered by `order`.
@@ -99,14 +97,14 @@ def window(
     #   row_number = pos - partition_start + 1
     #   rank       = peer_run_start - partition_start + 1
     pos = jnp.arange(n, dtype=jnp.int32)
-    from cuda.radixsort_tpu.ops.scan import plain_scan_fast
+    from cuda.radixsort_tpu.ops.scan import cumulative
 
-    part_start = plain_scan_fast(jnp.where(heads, pos, -1), "max")
+    part_start = cumulative(jnp.where(heads, pos, -1), "max")
     row_number = pos - part_start + 1
     # peer runs (equal order value within a partition) drive rank/dense_rank
     peer_heads = heads | jnp.concatenate(
         [jnp.ones((1,), bool), sorder[1:] != sorder[:-1]])
-    peer_start = plain_scan_fast(jnp.where(peer_heads, pos, -1), "max")
+    peer_start = cumulative(jnp.where(peer_heads, pos, -1), "max")
 
     out_cols = {}
     for name, src, fn in outputs:
@@ -118,8 +116,7 @@ def window(
             out_cols[name] = segmented_scan(
                 peer_heads.astype(jnp.int32), heads, "sum")
         elif fn in _SCAN_OP:
-            out_cols[name] = segmented_scan(sv[src], heads, _SCAN_OP[fn],
-                                            engine=scan_engine)
+            out_cols[name] = segmented_scan(sv[src], heads, _SCAN_OP[fn])
         elif fn == "lag":
             v = sv[src]
             shifted = jnp.concatenate([v[:1], v[:-1]])
@@ -142,7 +139,6 @@ def window_table(
     *,
     valid=None,
     descending: bool = False,
-    scan_engine: str = "auto",
     config=None,
 ):
     """Shared stage body for Query.window / Table.window / the distributed
@@ -163,7 +159,7 @@ def window_table(
                if k not in (partition_by, order_by) or k in needed}
     sp, so, sv, wcols, cnt = window(
         cols[partition_by], cols[order_by], payload, spec, valid=valid,
-        descending=descending, scan_engine=scan_engine, config=config)
+        descending=descending, config=config)
     out = dict(sv)
     out[partition_by] = sp
     out[order_by] = so

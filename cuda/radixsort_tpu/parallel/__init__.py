@@ -1,2 +1,2 @@
 """Distributed layer: mesh construction, all-to-all exchange, skew handling,
-multi-chip sort/shuffle via shard_map over ICI/DCN collectives."""
+multi-device sort/shuffle via shard_map collectives."""

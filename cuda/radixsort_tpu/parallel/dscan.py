@@ -5,12 +5,12 @@ the mesh-scale generalization the BASELINE contract demands of every
 operator (BASELINE.json:5). Single-chip semantics: ops/scan.py (runs of
 consecutive equal keys, cub::DeviceScan::*ByKey).
 
-TPU-native design — the decoupled-lookback idea done the XLA way: each
+Design — the decoupled-lookback idea done the XLA way: each
 shard scans locally (one fused associative_scan), publishes a 4-number
 summary (first key, last key, tail-run total, whole-shard-is-one-run flag),
 and ONE tiny all_gather lets every shard resolve its cross-shard carry by
 walking predecessor summaries — a static ndev-step loop over scalars, not a
-polling protocol over HBM flags. No row ever moves between devices: carries
+polling protocol over device-memory flags. No row ever moves between devices: carries
 are O(ndev) scalars while CUB's lookback chain serializes block-to-block
 through global memory.
 
@@ -27,15 +27,11 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from cuda.radixsort_tpu.ops.scan import _resolve_op, segmented_scan
 from cuda.radixsort_tpu.parallel.dsort import axis_size
-
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 
 @functools.partial(

@@ -1,12 +1,12 @@
 """Distributed radix sort / shuffle over a device mesh.
 
-TPU-native redesign of the reference's single-GPU pipeline for multi-chip:
-the reference (CUB dispatch_radix_sort.cuh) never leaves one device — its
-"exchange" between histogram and scatter phases is the striped spine in HBM
+Multi-device redesign of the reference's single-GPU pipeline: the reference
+(CUB dispatch_radix_sort.cuh) never leaves one device — its "exchange"
+between histogram and scatter phases is the striped spine in device memory
 (kernels/radix_sort.cuh:58-60). Here the same idea becomes a key-range
-exchange over ICI: a global histogram (psum) picks balanced splitters, an
-all_to_all moves each key to its owner, and each owner sorts its range
-locally. Output = globally sorted keys, range-partitioned across devices.
+exchange between devices: a global histogram (psum) picks balanced
+splitters, an all_to_all moves each key to its owner, and each owner sorts
+its range locally. Output = globally sorted keys, range-partitioned across devices.
 
 This is simultaneously the generic hash/range SHUFFLE operator demanded by
 BASELINE.json:5 (distributed all-to-all shuffle with histogram-driven
@@ -31,21 +31,17 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from cuda.radixsort_tpu import twiddle
-from cuda.radixsort_tpu import config as config_lib
-from cuda.radixsort_tpu.parallel import stats as stats_lib
+from jax import shard_map
 
-try:  # jax>=0.8 top-level; older releases kept it in experimental
-    from jax import shard_map  # type: ignore
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+from cuda.radixsort_tpu import twiddle
+from cuda.radixsort_tpu.parallel import stats as stats_lib
 
 
 def axis_size(mesh: Mesh, axis_name) -> int:
     """Devices along `axis_name`, which may be one mesh axis ("x") or a
     tuple of axes (("host", "chip")). Tuple axes flatten host-major —
     matching lax collectives' linearization — so every distributed op here
-    runs unchanged over a multi-axis (e.g. DCN x ICI) mesh."""
+    runs unchanged over a multi-axis (e.g. host x chip) mesh."""
     if isinstance(axis_name, (tuple, list)):
         size = 1
         for a in axis_name:
@@ -55,22 +51,7 @@ def axis_size(mesh: Mesh, axis_name) -> int:
 
 
 def _local_sort_bits(bits: jnp.ndarray) -> jnp.ndarray:
-    """Ascending unsigned sort of twiddled bits (device-local, collective-free).
-
-    On TPU this is the Pallas bitonic network (3.4x over lax.sort — the
-    local sort dominates the distributed pipeline's compute); elsewhere
-    (CPU CI meshes) it stays lax.sort."""
-    if config_lib.default_backend() == "tpu":
-        from cuda.radixsort_tpu.kernels.bitonic import sort_bits_bitonic
-
-        n = bits.shape[0]
-        logn = max((n - 1).bit_length(), 10)
-        npad = 1 << logn
-        if npad != n:
-            bits = jnp.concatenate(
-                [bits, jnp.full((npad - n,), 0xFFFFFFFF, jnp.uint32)]
-            )
-        return sort_bits_bitonic(bits)[:n]
+    """Ascending unsigned sort of twiddled bits (device-local, collective-free)."""
     return jax.lax.sort([bits], num_keys=1, is_stable=True, dimension=0)[0]
 
 
@@ -305,29 +286,15 @@ def _shard_valid(n: int, s: int, axis_name: str) -> jnp.ndarray:
 
 
 def _sort_chunk_bits(chunk: jnp.ndarray, desc_block: bool) -> jnp.ndarray:
-    """Sort one received round-chunk (power-of-two length), ascending or
-    descending — the alternating direction the bitonic merge tail needs."""
-    if config_lib.default_backend() == "tpu":
-        from cuda.radixsort_tpu.kernels.bitonic import sort_bits_bitonic
-
-        if desc_block:
-            return ~sort_bits_bitonic(~chunk)
-        return sort_bits_bitonic(chunk)
+    """Sort one received round-chunk, ascending or descending (alternating
+    blocks, so the concatenation is a sequence of sorted runs)."""
     s = jax.lax.sort([chunk], num_keys=1, dimension=0)[0]
     return s[::-1] if desc_block else s
 
 
 def _merge_round_chunks(chunks: list[jnp.ndarray]) -> jnp.ndarray:
     """Merge alternating-direction sorted chunks into one ascending array."""
-    cat = jnp.concatenate(chunks)
-    if config_lib.default_backend() == "tpu":
-        from cuda.radixsort_tpu.kernels.bitonic import (
-            merge_sorted_planes_bitonic,
-        )
-
-        lb = chunks[0].shape[0].bit_length() - 1
-        return merge_sorted_planes_bitonic([cat], log_block=lb, n_cmp=1)[0]
-    return jax.lax.sort([cat], num_keys=1, dimension=0)[0]
+    return jax.lax.sort([jnp.concatenate(chunks)], num_keys=1, dimension=0)[0]
 
 
 def resolve_rounds(cap_rows: int, bytes_per_row: int = 4) -> int:
@@ -335,8 +302,8 @@ def resolve_rounds(cap_rows: int, bytes_per_row: int = 4) -> int:
     all_to_all overlaps round k's chunk sort) once a per-destination send
     lane exceeds ~4 MB, else 1 (small lanes are latency-bound; splitting
     them only doubles the latency term). BASELINE.json:5/11 names the
-    double-buffered exchange explicitly; VERDICT r4 #7 demanded it engage
-    by default. RS_EXCHANGE_ROUNDS forces a value;
+    double-buffered exchange explicitly, so it engages by default.
+    RS_EXCHANGE_ROUNDS forces a value;
     RS_EXCHANGE_ROUNDS_LANE_BYTES moves the threshold (tests use a tiny one
     to land CPU-sized sorts on the rounds>1 path)."""
     import os
@@ -357,7 +324,7 @@ def sort_sharded_bits(bits, axis_name: str, ndev: int, cap: int | None = None,
     bits: (S,) uint32 local shard of twiddled bits; valid: optional (S,) bool
     marking real rows (padding rows are dropped from the exchange — validity
     is EXPLICIT, never inferred from key values, so keys equal to 0xFFFFFFFF
-    survive; VERDICT r1 data-loss fix).
+    survive).
     Returns (out_padded (ndev*cap,), valid_count ()) per device: device d
     holds the d-th globally-sorted key range, pad-filled at the tail (trim
     with the count — pad fills are the max key, and real max-key rows tie
@@ -367,8 +334,8 @@ def sort_sharded_bits(bits, axis_name: str, ndev: int, cap: int | None = None,
     rounds > 1 (power of two) splits the exchange into that many sub-lane
     rounds: round k+1's all_to_all is issued BEFORE round k's chunk sort in
     the graph, so XLA's async collectives overlap transfer with local sort
-    compute (BASELINE.json:5,11 double-buffered exchange); the pre-sorted
-    alternating-direction chunks then need only the bitonic merge tail.
+    compute (BASELINE.json:5,11 double-buffered exchange); one final sort
+    merges the pre-sorted alternating-direction chunks.
     """
     s = bits.shape[0]
     cap = s if cap is None else cap
@@ -401,7 +368,7 @@ def sort_sharded_bits(bits, axis_name: str, ndev: int, cap: int | None = None,
         return out, valid_count, counts
 
     # round-based double-buffered exchange: chunk length padded to a power
-    # of two so the merge tail is a plain bitonic suffix
+    # of two (bounds the compiled variants)
     cl = 1 << max((ndev * cap_r - 1).bit_length(), 10)
 
     def exchange_round(r):
@@ -467,8 +434,6 @@ def sort_distributed(keys: jnp.ndarray, *, mesh: Mesh, axis_name: str = "x",
         in_specs=P(axis_name),
         out_specs=(P(axis_name), P(axis_name),
                    stats_lib.stats_out_specs(axis_name)),
-        # pallas_call out_shapes carry no vma annotation; skip the check
-        # (outputs are per-shard by construction)
         check_vma=False,
     )(bits)
     return out, counts, st
@@ -546,7 +511,8 @@ def sort_pairs_distributed(keys: jnp.ndarray, values: jnp.ndarray, *,
 
 def make_mesh_2d(hosts: int, chips: int, host_axis: str = "host",
                  chip_axis: str = "chip") -> Mesh:
-    """(hosts x chips) mesh: outer axis = DCN (slower), inner = ICI."""
+    """(hosts x chips) mesh: outer axis = inter-host links (slower), inner
+    = intra-host links."""
     return jax.make_mesh((hosts, chips), (host_axis, chip_axis))
 
 
@@ -565,10 +531,9 @@ def sort_distributed_hier(keys: jnp.ndarray, *, mesh: Mesh,
     Stage 1 routes every key to its owner HOST: splitters are computed from
     the global histogram (psum over both axes) at host granularity, and the
     all_to_all runs over `host_axis` only — each chip exchanges with its
-    same-position peers on other hosts, so the DCN sees H lanes of large
-    messages instead of the flattened exchange's H*C small ones (DCN is
-    latency/message-rate bound; ICI is not — "How to Scale Your Model"
-    mesh-layout recipe). Stage 2 is the standard chip-axis sort of the host's
+    same-position peers on other hosts, so the inter-host network sees H
+    lanes of large messages instead of the flattened exchange's H*C small
+    ones (it is latency/message-rate bound; intra-host links are not). Stage 2 is the standard chip-axis sort of the host's
     key range (`sort_sharded_bits` — splitters from the host-local psum).
 
     Output: device (h, c) holds the c-th chip range of the h-th host range —
@@ -593,7 +558,7 @@ def sort_distributed_hier(keys: jnp.ndarray, *, mesh: Mesh,
     def shard_fn(b):
         b = b.reshape(-1)
         valid = _shard_valid(n, s, both)
-        # ---- stage 1: to the owner host, over the DCN axis only ----
+        # ---- stage 1: to the owner host, over the host axis only ----
         dest_h = _route_plan(b, valid, both, nh, sb_host)
         send, counts_h = _make_padded_send(b, dest_h, nh, hcap, sentinel)
         recv_counts = jax.lax.all_to_all(
@@ -607,7 +572,7 @@ def sort_distributed_hier(keys: jnp.ndarray, *, mesh: Mesh,
         st1 = stats_lib.shard_stats(
             counts_h, jnp.sum(recv_counts), hcap, nh, both, bytes_per_row=4,
             skew_ndev=ndev)
-        # ---- stage 2: chip-axis sort of the host's range, over ICI ----
+        # ---- stage 2: chip-axis sort of the host's range ----
         out, valid_count, counts_c = sort_sharded_bits(
             recv, chip_axis, nc, cap=chip_cap, valid=rvalid)
         st2 = stats_lib.shard_stats(

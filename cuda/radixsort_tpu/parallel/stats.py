@@ -30,9 +30,9 @@ class ExchangeStats(NamedTuple):
         This is the PADDED-LANE UPPER BOUND ((ndev-1) send lanes of `cap`
         rows each; the self-lane stays local) even when exact send counts
         are known — it is what the all_to_all physically moves. float32,
-        not int: int32 overflows at pod-scale caps (2^27 rows x 8 B x 7
-        peers ~ 7.5 GB > 2^31), and int64 silently truncates to int32 on
-        this backend with x64 disabled (NOTES gotcha); f32 is exact to
+        not int: int32 overflows at large caps (2^27 rows x 8 B x 7
+        peers ~ 7.5 GB > 2^31), and int64 silently truncates to int32
+        with x64 disabled; f32 is exact to
         16 MB and within 1/2^24 above — observability-grade.
     cap: int32 — the static lane capacity the exchange ran with.
     cap_utilization: float32 — max send-lane occupancy / cap (1.0 == the
@@ -104,7 +104,7 @@ def stats_out_specs(axis_name: str):
 
 
 def describe(stats: ExchangeStats) -> str:
-    """One-line human summary (bench_suite / debugging)."""
+    """One-line human summary (debugging)."""
     import numpy as np
 
     ri = np.asarray(stats.rows_in)

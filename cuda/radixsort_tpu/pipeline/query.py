@@ -6,7 +6,7 @@ the structured observability of SURVEY.md §5: per-stage stats as a pytree,
 replacing the reference's CUB_DEBUG_LOG prints).
 
 Distributed: probe rows stay sharded; the filter and sort run shard-local
-under shard_map; the join broadcasts the build side (all_gather over ICI)
+under shard_map; the join broadcasts the build side (all_gather)
 — XLA schedules the gather asynchronously against the local filter/sort
 compute, which is the exchange/compute overlap BASELINE.json asks for.
 """
@@ -18,17 +18,13 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from cuda.radixsort_tpu import config as config_lib
 from cuda.radixsort_tpu.ops.filter import filter_columns
 from cuda.radixsort_tpu.ops.join import join as join_op
 from cuda.radixsort_tpu.parallel.dsort import axis_size
-
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 class QueryStats(NamedTuple):
@@ -54,13 +50,8 @@ def filter_sort_join(
     """
     n = probe_keys.shape[0]
     mask = probe_vals > threshold
-    # compaction routing mirrors ops/join.py: Pallas 1-bit stage from
-    # 2^20 rows (the old xla-wins-at-4M result was an elision artifact —
-    # materialized, pallas 75.9 vs xla 122.9 ms at 4M, r5)
-    from cuda.radixsort_tpu.ops.filter import compaction_config
-
-    fcfg = compaction_config(config_lib.resolve(config), n)
-    (fk, fv), nf = filter_columns(mask, (probe_keys, probe_vals), config=fcfg)
+    (fk, fv), nf = filter_columns(mask, (probe_keys, probe_vals),
+                                 config=config)
 
     # join ignores the invalid tail by keying it with a reserved sentinel
     # that cannot match any build key (build keys are user data; instead we
@@ -70,7 +61,7 @@ def filter_sort_join(
                               config=config)
     # drop matches whose probe row was filtered out (idx >= nf)
     keep = (jnp.arange(ok.shape[0]) < cnt) & (oi < nf)
-    (k2, bv2, pi2), cnt2 = filter_columns(keep, (ok, ov, oi), config=fcfg)
+    (k2, bv2, pi2), cnt2 = filter_columns(keep, (ok, ov, oi), config=config)
     pv2 = jnp.take(fv, pi2, axis=0)
     stats = QueryStats(
         rows_in=jnp.asarray(n, jnp.int32),
@@ -168,7 +159,6 @@ def filter_sort_join_distributed(
         in_specs=(P(axis_name),) * 4,
         out_specs=((P(axis_name),) * 4
                    + (jax.tree.map(lambda _: P(), QueryStats(0, 0, 0)),)),
-        # pallas_call out_shapes carry no vma annotation; skip the check
         check_vma=False,
     )(probe_keys, probe_vals, build_keys, build_vals)
     return k.reshape(-1), pv.reshape(-1), bv.reshape(-1), cnt.reshape(-1), stats

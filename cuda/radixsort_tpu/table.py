@@ -1,8 +1,8 @@
 """Column-batch table abstraction — the storage layer of the engine.
 
 SURVEY §1 names "column-batch storage (HBM-resident, sharded)" as the
-framework's bottom layer; round 1 shipped operators over raw arrays and left
-tables as ad-hoc pytrees. This module is the first-class version: a Table is
+framework's bottom layer. Operators take raw arrays; this module gives
+them a first-class container: a Table is
 an immutable set of named, equal-length 1-D columns registered as a JAX
 pytree, so it jits, shards (`Table.shard` places every column on a mesh
 axis) and donates like any array — columnar by construction (SoA), which is
@@ -283,7 +283,7 @@ def concat_tables(tables, counts=None):
     the result is (table, total_count); without counts, a plain
     concatenation (all rows valid).
 
-    TPU-native: the compaction is one stable 1-bit partition over the
+    The compaction is one stable 1-bit partition over the
     stacked validity mask — no ragged shapes, no host loop."""
     import jax.numpy as jnp
 

@@ -4,7 +4,7 @@ Reference parity: `thrust::sort` / `sort_by_key` / `stable_sort*` and their
 companion algorithms, as dispatched by thrust's CUDA backend (THRUST
 system/cuda/detail/sort.h). The routing rule is transplanted verbatim in
 spirit: `can_use_primitive_sort` (sort.h:310-326) — an arithmetic key under
-`less`/`greater` — takes the radix/bitonic engine; any other comparator
+`less`/`greater` — takes the sort engine; any other comparator
 takes the comparison-sort path (here the comparator network of
 `ops/comparator_sort.py`, thrust's merge sort, sort.h:333-337).
 
@@ -49,7 +49,7 @@ from cuda.radixsort_tpu.ops.comparator_sort import (  # noqa: F401
 
 
 def sort(keys, comp: Callable = less, *, config=None):
-    """thrust::sort. Stable on the primitive path (radix/bitonic engines are
+    """thrust::sort. Stable on the primitive path (the sort engines are
     stable); comparator path leaves equal keys in unspecified order, exactly
     thrust's contract for plain `sort`."""
     prim, desc = primitive_comparator(comp)
@@ -89,9 +89,8 @@ def _sort_by_key(keys, values, comp, *, stable, config):
         # sort_pairs rides flat u32 planes through the engines, so every
         # flattened value leaf must be rank-1. 2-D leaves with few narrow
         # columns (an (N, 3) point column) split into per-column planes and
-        # ride the same sort (the TPU gather the old argsort+take route
-        # paid runs at ~0.11 G rows/s); anything wider/deeper falls back to
-        # the permutation route (ADVICE r4).
+        # ride the same sort; anything wider/deeper falls back to the
+        # permutation route.
         leaves = jax.tree_util.tree_leaves(values)
         splittable = all(
             getattr(v, "ndim", 1) == 1
@@ -105,7 +104,7 @@ def _sort_by_key(keys, values, comp, *, stable, config):
 
             cols = jax.tree_util.tree_map(split, values)
             ok, ocols = sort_pairs(keys, cols, descending=desc,
-                                   config=config, stable=stable)
+                                   config=config)
             outer = jax.tree_util.tree_structure(
                 values, is_leaf=lambda x: hasattr(x, "ndim"))
             ocols_by_leaf = outer.flatten_up_to(ocols)
@@ -118,14 +117,10 @@ def _sort_by_key(keys, values, comp, *, stable, config):
             return keys[perm], jax.tree_util.tree_map(
                 lambda v: jnp.take(v, perm, axis=0), values)
         # thrust::sort_by_key does not promise equal-key payload order
-        # (THRUST sort.h smart_sort radix path) — the unstable route drops
-        # the bitonic index tie-break plane. Pytree values (zip_iterator
-        # analogue) ride the same sort; the engine gates route wide payload
-        # sets to the stable lax.sort multi-operand path, which beats the
-        # old argsort + per-column jnp.take (TPU gathers run at ~0.07 G
-        # rows/s, probe_pairs_gather r3).
-        return sort_pairs(keys, values, descending=desc, config=config,
-                          stable=stable)
+        # (THRUST sort.h smart_sort radix path); the stable order is one
+        # valid answer. Pytree values (zip_iterator analogue) ride the same
+        # multi-operand sort.
+        return sort_pairs(keys, values, descending=desc, config=config)
     return comparator_sort(keys, comp, values=values, stable=stable)
 
 
@@ -450,7 +445,7 @@ def exclusive_scan_by_key(keys, values, init=0, binary_op=None,
 
 
 # ---------------------------------------------------------------------------
-# elementwise / transform family — on TPU these exist so thrust call sites
+# elementwise / transform family — these exist so thrust call sites
 # port 1:1; XLA fuses them into neighbors (DeviceTransform's rationale)
 # ---------------------------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Key-ordering traits: order-preserving bijections into unsigned bit space.
 
-TPU-native re-design of the reference stack's radix-sort key "twiddling"
+Re-design of the reference stack's radix-sort key "twiddling"
 (reference semantics: CUB ``util_type.cuh:839-942`` — unsigned = identity,
 signed = XOR sign bit, float = XOR sign bit if positive / full complement if
 negative — and ``radix_rank_sort_operations.cuh:575-618`` for the extra full
@@ -70,8 +70,7 @@ def twiddle_in(keys: jnp.ndarray, descending: bool = False) -> jnp.ndarray:
         bits = keys.astype(u)
     elif jnp.issubdtype(d, jnp.signedinteger):
         # XOR the sign bit, expressed without bitcast-convert (arithmetic XOR
-        # + same-width convert are bit-preserving two's-complement ops) — TPU
-        # X64 rewriting does not implement 64-bit bitcasts.
+        # + same-width convert are bit-preserving two's-complement ops).
         bits = (keys ^ jnp.array(jnp.iinfo(d).min, d)).astype(u)
     else:  # floating
         raw = keys.view(u)

@@ -182,7 +182,7 @@ def test_groupby_quantile_distributed_overflow_groups(mesh, rng):
     # 12 distinct groups, max_groups=8: truncation must be REPORTED
     # (n_groups > max_groups) and the 8 key-smallest groups must stay
     # exact — rows of dropped groups may not corrupt kept slots
-    # (the r2 silent-corruption bug: searchsorted clipped them in).
+    # (searchsorted would otherwise clip them in).
     keys = rng.integers(0, 12, size=6000).astype(np.uint32) * 7 + 2
     vals = rng.integers(0, 100000, size=6000).astype(np.uint32)
     gk, qcols, cnt = dselect.groupby_quantile_distributed(

@@ -88,7 +88,7 @@ def test_sized_exchange_skewed(mesh):
 
 
 # ---------------------------------------------------------------------------
-# round-2 adversarial tests (VERDICT r1 #2/#5): sentinel-valued keys must
+# adversarial tests: sentinel-valued keys must
 # survive the exchange, and a heavy single key must spread across devices.
 # ---------------------------------------------------------------------------
 
@@ -202,7 +202,7 @@ def test_round_based_exchange(mesh, rounds):
 
 
 def test_default_routed_rounds_engage(mesh, monkeypatch):
-    """VERDICT r4 #7: sort_distributed picks rounds>1 ITSELF once a send
+    """sort_distributed picks rounds>1 ITSELF once a send
     lane crosses the threshold — here lowered so a CPU-sized sort lands on
     the double-buffered path without an explicit rounds argument."""
     monkeypatch.setenv("RS_EXCHANGE_ROUNDS_LANE_BYTES", "1024")
@@ -371,3 +371,11 @@ def test_groupby_distributed_tuple_axis(mesh2d):
     order = np.argsort(gk, kind="stable")
     np.testing.assert_array_equal(np.sort(gk), want_k)
     np.testing.assert_array_equal(gv[order].astype(np.int64), want_v)
+
+
+def test_exchange_rounds_default_routing():
+    """The double-buffered exchange engages itself at >4 MB send lanes
+    (BASELINE.json:5,11)."""
+    from cuda.radixsort_tpu.parallel import dsort
+    assert dsort.resolve_rounds((4 * 1024 * 1024) // 4 + 1) == 2
+    assert dsort.resolve_rounds((4 * 1024 * 1024) // 4) == 1

@@ -56,7 +56,7 @@ def test_device_transform():
 
 def test_device_n_boundary_loud_error():
     """Device paths are int32-indexed; >2^31 rows must fail loudly with a
-    pointer to the out-of-core path, not wrap (VERDICT r4 #9; CUB instead
+    pointer to the out-of-core path, not wrap (CUB instead
     widens offsets, device_radix_sort.cuh:353)."""
     too_big = jax.ShapeDtypeStruct(((1 << 31) + 128,), jnp.uint32)
     vals = jax.ShapeDtypeStruct(((1 << 31) + 128,), jnp.int32)

@@ -519,7 +519,7 @@ def test_query_quantiles_max_groups_hint_distributed(mesh, rng):
 
 
 def test_query_quantiles_auto_route_no_hint(mesh, rng):
-    """VERDICT r3 #6: with NO max_groups hint, a <=64-group input must
+    """With NO max_groups hint, a <=64-group input must
     auto-route to the zero-row-movement refinement path (observable: the
     sharded output is exactly 64 slots per device, not the exchange
     path's row-padded width), and stay correct."""

@@ -159,8 +159,7 @@ def test_dist_plan_tuple_axis(rng):
 
 def test_dist_join_large_build_hash_localizes(mesh, rng, monkeypatch):
     """An inner join whose build exceeds the broadcast threshold must run
-    through the hash-localize route (r2 VERDICT: the planner never used
-    the router) and still match the single-chip plan exactly."""
+    through the hash-localize route and still match the single-chip plan exactly."""
     import cuda.radixsort_tpu.pipeline.plan as plan_mod
 
     monkeypatch.setattr(plan_mod, "_JOIN_BROADCAST_ROWS", 64)
@@ -208,7 +207,7 @@ def test_dist_join_semi_large_build(mesh, rng, monkeypatch):
 
 
 def test_dist_order_by_large_gather_warns(mesh, rng, monkeypatch):
-    """VERDICT r2 weak #8: an order_by in a distributed plan replicates the
+    """An order_by in a distributed plan replicates the
     running table to every device; above _GATHER_WARN_BYTES that must warn
     at trace time (and stay silent for small post-aggregation results)."""
     import warnings
@@ -229,3 +228,20 @@ def test_dist_order_by_large_gather_warns(mesh, rng, monkeypatch):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         Query(t).order_by("k").run(mesh=mesh)
+
+
+def test_dist_order_by_limit_gathers_only_the_local_tops(mesh, rng):
+    """order_by + limit(k) in a distributed plan gathers k rows per device,
+    not the whole padded shard, and agrees with the single-chip plan."""
+    n = 8 * 4096
+    t = table(k=jnp.asarray(rng.integers(0, 1 << 12, size=n).astype(np.uint32)),
+              v=jnp.asarray(rng.integers(-50, 50, size=n).astype(np.int32)))
+    q = (Query(t).groupby("k", "v", agg="sum")
+         .order_by("v", descending=True).limit(9))
+    so, sc, _ = q.run()
+    do, dc, _ = q.run(mesh=mesh)
+    c = int(np.asarray(sc))
+    assert int(np.asarray(dc)) == c == 9
+    assert np.asarray(do["v"]).shape[0] == 9 * mesh.shape["x"]
+    np.testing.assert_array_equal(np.asarray(do["v"])[:c],
+                                  np.asarray(so["v"])[:c])

@@ -1,7 +1,5 @@
-"""Policy-hub sweep (VERDICT r1 #8): SortConfig knobs must each select a
-different compiled kernel variant and all variants must agree with the
-oracle. Interpret-mode on CPU; the same sweep runs compiled on TPU via
-scripts/tpu_check.py."""
+"""SortConfig policy: the engines it accepts, and the reference engine's
+knobs (digit width, tile size) each agreeing with the oracle."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,8 +7,6 @@ import pytest
 
 import cuda.radixsort_tpu as rs
 from cuda.radixsort_tpu import config as config_lib
-from cuda.radixsort_tpu.kernels import histogram as hist_lib
-from cuda.radixsort_tpu.kernels import pipeline as kpipe
 
 
 def _keys(n, seed=0):
@@ -18,101 +14,44 @@ def _keys(n, seed=0):
     return rng.integers(0, 2**32, size=n, dtype=np.uint32)
 
 
-@pytest.mark.parametrize("radix_bits,stage_rows", [
-    (2, 128), (2, 256), (4, 128), (4, 256),
+@pytest.mark.parametrize("engine", ["pallas", "bitonic", "cub", ""])
+def test_unknown_engine_rejected(engine):
+    with pytest.raises(ValueError, match="engine"):
+        config_lib.SortConfig(engine=engine)
+
+
+def test_auto_resolves_to_xla():
+    assert config_lib.resolve(None).engine == "xla"
+    assert config_lib.resolve(rs.SortConfig(engine="reference")).engine == \
+        "reference"
+    assert config_lib.resolve(None, radix_bits=4).radix_bits == 4
+
+
+@pytest.mark.parametrize("radix_bits,tile_rows", [
+    (2, 8), (4, 8), (5, 16), (8, 64),
 ])
-def test_stage_pipeline_variants(radix_bits, stage_rows):
-    # each (width, rows) pair is a distinct Pallas stage variant
-    cfg = config_lib.SortConfig(
-        engine="pallas", radix_bits=radix_bits, stage_rows=stage_rows,
-        interpret=True)
-    keys = _keys(stage_rows * 128, seed=radix_bits * 10 + stage_rows)
+def test_reference_knob_variants(radix_bits, tile_rows):
+    cfg = rs.SortConfig(engine="reference", radix_bits=radix_bits,
+                        tile_rows=tile_rows)
+    assert cfg.num_bins == 1 << radix_bits
+    assert cfg.tile_elems == tile_rows * 128
+    keys = _keys(3 * cfg.tile_elems + 17, seed=radix_bits * 10 + tile_rows)
     out = np.asarray(rs.sort(jnp.asarray(keys), config=cfg))
     np.testing.assert_array_equal(out, np.sort(keys))
 
 
-def test_stage_width_changes_pass_count():
-    assert kpipe.stage_width(config_lib.SortConfig(radix_bits=2)) == 2
-    assert kpipe.stage_width(config_lib.SortConfig(radix_bits=3)) == 2
-    assert kpipe.stage_width(config_lib.SortConfig(radix_bits=4)) == 4
-    assert kpipe.stage_width(config_lib.SortConfig(radix_bits=8)) == 4
-    assert kpipe._stages_for(0, 8, 2) == [0, 2, 4, 6]
-    assert kpipe._stages_for(0, 8, 4) == [0, 4]
-
-
-@pytest.mark.parametrize("width", [2, 4])
-def test_histogram_widths(width):
-    keys = _keys(256 * 128, seed=width)
-    kp = jnp.asarray(keys).reshape(-1, 128)
-    n_stages = 32 // width
-    h = np.asarray(hist_lib.digit_histograms(
-        kp, n_stages=n_stages, width=width, interpret=True))
-    assert h.shape == (n_stages, 1 << width)
-    for s in range(n_stages):
-        want = np.bincount((keys >> (width * s)) & ((1 << width) - 1),
-                           minlength=1 << width)
-        np.testing.assert_array_equal(h[s], want)
-
-
-@pytest.mark.parametrize("log_tile,log_merge", [(10, 11), (11, 12)])
-def test_bitonic_geometry_variants(log_tile, log_merge):
-    from cuda.radixsort_tpu.kernels.bitonic import sort_bits_bitonic
-
-    keys = _keys(1 << 12, seed=log_tile)
-    out = np.asarray(sort_bits_bitonic(
-        jnp.asarray(keys), log_tile=log_tile, log_merge=log_merge,
-        interpret=True))
-    np.testing.assert_array_equal(out, np.sort(keys))
-
-
-def test_bitonic_geometry_from_config():
-    # log_tile/log_merge thread from SortConfig into the network
-    cfg = config_lib.SortConfig(engine="bitonic", log_tile=10, log_merge=11,
-                                interpret=True)
-    keys = _keys(1 << 11, seed=99)
-    out = np.asarray(rs.sort(jnp.asarray(keys), config=cfg))
-    np.testing.assert_array_equal(out, np.sort(keys))
-
-
-def test_partition_width_variants():
-    # partition-class op through 2-bit stages (the cheap-stage policy)
+@pytest.mark.parametrize("radix_bits", [2, 4])
+def test_partition_width_variants(radix_bits):
+    # a partition-class op through the reference engine's digit widths
     from cuda.radixsort_tpu.ops.filter import filter_columns
 
     rng = np.random.default_rng(7)
-    n = 128 * 256
+    n = 128 * 64
     vals = rng.integers(0, 100, size=n).astype(np.int32)
     mask = vals >= 50
-    for rb in (2, 4):
-        cfg = config_lib.SortConfig(engine="pallas", radix_bits=rb,
-                                    stage_rows=128, interpret=True)
-        (out,), cnt = filter_columns(jnp.asarray(mask), (jnp.asarray(vals),),
-                                     config=cfg)
-        assert int(cnt) == int(mask.sum())
-        np.testing.assert_array_equal(np.asarray(out)[: int(cnt)], vals[mask])
-
-def test_generation_presets_all_compile():
-    """Every per-generation preset row must produce a working SortConfig
-    (VERDICT r2 #9): sort a small array under each preset's knobs."""
-    import numpy as np
-    import jax.numpy as jnp
-    from cuda.radixsort_tpu import config as config_lib
-    from cuda.radixsort_tpu.ops.sort import sort as rs_sort
-
-    rng = np.random.default_rng(5)
-    x = rng.integers(0, 2**32, size=4096, dtype=np.uint32)
-    want = np.sort(x)
-    for gen, knobs in config_lib._GEN_PRESETS.items():
-        cfg = config_lib.SortConfig(engine="reference", **knobs)
-        got = np.asarray(rs_sort(jnp.asarray(x), config=cfg))
-        np.testing.assert_array_equal(got, want, err_msg=gen)
-
-
-def test_generation_normalization():
-    from cuda.radixsort_tpu.config import generation
-
-    assert generation("TPU v5 lite") == "v5e"
-    assert generation("TPU v5p") == "v5p"
-    assert generation("TPU v5") == "v5p"
-    assert generation("TPU v6 lite") == "v6e"
-    assert generation("TPU v6e") == "v6e"
-    assert generation("weird future chip") == "v5e"
+    cfg = rs.SortConfig(engine="reference", radix_bits=radix_bits,
+                        tile_rows=16)
+    (out,), cnt = filter_columns(jnp.asarray(mask), (jnp.asarray(vals),),
+                                 config=cfg)
+    assert int(cnt) == int(mask.sum())
+    np.testing.assert_array_equal(np.asarray(out)[: int(cnt)], vals[mask])

@@ -1,13 +1,13 @@
-"""Algorithmic-scaling asserts on the virtual mesh (VERDICT r3 #7).
+"""Algorithmic-scaling asserts on the virtual mesh.
 
 Wall-clock scaling is meaningless on 8 virtual CPU devices sharing one
 socket, but the exchange ALGEBRA is not: with per-device rows held fixed
 (weak scaling), the wire bytes each device puts on the interconnect must
 stay O(rows_per_device) as the mesh grows 2 -> 8 — a hidden O(N_total)
 replication would quadruple it. These tests pin that invariant for the
-sized sort / groupby / join exchanges, so the one-command pod measurement
-(scripts/bench_suite.py --scaling) can't be ambushed by a scaling bug the
-CPU mesh could have caught.
+sized sort / groupby / join exchanges, so a four-card measurement
+(chip_smoke.py --multichip) can't be ambushed by a scaling bug the CPU
+mesh could have caught.
 
 Accounting note: ExchangeStats.wire_bytes is the PADDED-LANE bound
 (ndev-1 lanes x cap rows); with a SIZED cap (~ per-lane true max ~

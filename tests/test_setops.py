@@ -52,7 +52,7 @@ def test_setops_multiset_semantics(rng, hi):
 
 
 def test_setops_max_key_no_sentinel_conflation(rng):
-    # real keys at u32 max must survive (the VERDICT r1 sentinel lesson)
+    # real keys at u32 max must survive (no sentinel keys)
     a = np.array([5, 0xFFFFFFFF, 0xFFFFFFFF], np.uint32)
     b = np.array([0xFFFFFFFF], np.uint32)
     out, cnt = set_union(jnp.asarray(a), jnp.asarray(b))

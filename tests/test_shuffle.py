@@ -75,10 +75,7 @@ def test_exchange_rows_basic(mesh):
     data = rng.integers(0, 2**31, size=n).astype(np.int32)
     dest = rng.integers(0, NDEV, size=n).astype(np.int32)
 
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     def fn(d, x):
@@ -126,7 +123,7 @@ def test_groupby_distributed_sized(mesh):
 
 
 # ---------------------------------------------------------------------------
-# round-2 adversarial groupby tests (VERDICT r1 #2): no reserved key values,
+# adversarial groupby tests: no reserved key values,
 # no divisibility restriction.
 # ---------------------------------------------------------------------------
 
@@ -191,7 +188,7 @@ def test_groupby_non_divisible_sized(mesh):
 
 
 # ---------------------------------------------------------------------------
-# round-2: hash-exchange distributed join (VERDICT r1 #3)
+# hash-exchange distributed join
 # ---------------------------------------------------------------------------
 
 
@@ -287,17 +284,14 @@ def test_join_distributed_router(mesh):
 
 def test_exchange_rows_undersized_cap_is_loud(mesh):
     """A cap below the true per-destination send count must NOT silently
-    drop the overflow rows (r2 weakness): the received validity is
+    drop the overflow rows: the received validity is
     poisoned to all-False mesh-wide, so the failure is obvious."""
     rng = np.random.default_rng(7)
     n = NDEV * 64
     data = rng.integers(0, 2**31, size=n).astype(np.int32)
     dest = np.zeros(n, np.int32)  # everything to device 0: count=64 > cap=16
 
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     def fn(d, x):

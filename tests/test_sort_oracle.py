@@ -6,7 +6,6 @@ duplicates-heavy/constant inputs, stability via index payloads, and the
 reference engine vs the xla engine cross-check.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,16 +54,11 @@ def test_u32_sizes(n, engine):
     np.testing.assert_array_equal(got, np.sort(keys, kind="stable"))
 
 
-_F64 = pytest.param(
-    np.float64,
-    marks=pytest.mark.skipif(
-        jax.default_backend() == "tpu", reason="no f64 bitcast on TPU backend"
-    ),
-)
+DTYPES = [np.uint32, np.int32, np.float32, np.uint64, np.int64, np.float64,
+          np.uint16, np.int8]
 
 
-@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32, np.uint64,
-                                   np.int64, _F64, np.uint16, np.int8])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("descending", [False, True])
 def test_dtypes(dtype, descending):
     keys = _rand_keys(dtype, 10_000, seed=2)
@@ -149,3 +143,42 @@ def test_engines_agree():
     a = np.asarray(rs.sort(jnp.asarray(keys), config=REF))
     b = np.asarray(rs.sort(jnp.asarray(keys), config=XLA))
     np.testing.assert_array_equal(a, b)
+
+
+def _bits_view(x):
+    """Bitwise view for float comparisons (NaN patterns, -0.0)."""
+    x = np.asarray(x)
+    if np.issubdtype(x.dtype, np.floating):
+        x = np.where(x == 0, np.zeros_like(x), x)
+        return x.view(np.dtype(f"uint{8 * x.itemsize}"))
+    return x
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_reference_xla_numpy_agree(dtype):
+    """The reference LSD engine, the lax.sort engine and numpy give the same
+    stable order."""
+    keys = _rand_keys(dtype, 6_000, seed=9)
+    want, _ = _np_oracle(keys)
+    a = rs.sort(jnp.asarray(keys), config=REF)
+    b = rs.sort(jnp.asarray(keys), config=XLA)
+    np.testing.assert_array_equal(_bits_view(a), _bits_view(want))
+    np.testing.assert_array_equal(_bits_view(b), _bits_view(want))
+
+
+@pytest.mark.parametrize("engine", ["reference", "xla"])
+@pytest.mark.parametrize("pay_dtype", [np.float64, np.int64])
+def test_pairs_8_byte_payloads(engine, pay_dtype):
+    rng = np.random.default_rng(10)
+    n = 7_000
+    keys = rng.integers(0, 300, size=n).astype(np.uint32)
+    if pay_dtype == np.float64:
+        vals = rng.standard_normal(n)
+    else:
+        vals = rng.integers(-2**62, 2**62, size=n, dtype=np.int64)
+    cfg = REF if engine == "reference" else XLA
+    k, v = rs.sort_pairs(jnp.asarray(keys), jnp.asarray(vals), config=cfg)
+    perm = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(np.asarray(k), keys[perm])
+    assert np.asarray(v).dtype == pay_dtype
+    np.testing.assert_array_equal(np.asarray(v), vals[perm])

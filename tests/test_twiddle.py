@@ -11,20 +11,9 @@ import pytest
 
 from cuda.radixsort_tpu import twiddle
 
-import jax
-
-# f64 twiddling needs a 64-bit float bitcast, which the TPU X64 rewriter does
-# not implement — f64 keys are supported via the decomposed (hi, lo) u32
-# column API on TPU (see ops/sort.py), tested in test_sort_oracle.
-_F64 = pytest.param(
-    jnp.float64,
-    marks=pytest.mark.skipif(
-        jax.default_backend() == "tpu", reason="no f64 bitcast on TPU backend"
-    ),
-)
 INT_DTYPES = [jnp.uint8, jnp.uint16, jnp.uint32, jnp.uint64,
               jnp.int8, jnp.int16, jnp.int32, jnp.int64]
-FLOAT_DTYPES = [jnp.float16, jnp.bfloat16, jnp.float32, _F64]
+FLOAT_DTYPES = [jnp.float16, jnp.bfloat16, jnp.float32, jnp.float64]
 
 
 def _rand(dtype, n=4096, seed=0):

@@ -19,7 +19,6 @@ from cuda.radixsort_tpu import (
 )
 from cuda.radixsort_tpu import cub_compat as cc
 from cuda.radixsort_tpu import twiddle
-from cuda.radixsort_tpu.config import SortConfig
 
 
 def _runs_oracle(x):
@@ -153,37 +152,6 @@ def test_merge_pairs_stable_across_inputs():
     np.testing.assert_array_equal(np.asarray(ov), cat_v[perm])
 
 
-def test_merge_network_path_interpret():
-    # force the bitonic merge-level engine (cfg.interpret routes to it)
-    rng = np.random.default_rng(17)
-    na, nb = 1500, 1100
-    a = np.sort(rng.integers(0, 2**32, size=na, dtype=np.uint64)
-                .astype(np.uint32))
-    b = np.sort(rng.integers(0, 2**32, size=nb, dtype=np.uint64)
-                .astype(np.uint32))
-    cfg = SortConfig(interpret=True)
-    out = merge_sorted(jnp.asarray(a), jnp.asarray(b), config=cfg)
-    np.testing.assert_array_equal(np.asarray(out),
-                                  np.sort(np.concatenate([a, b])))
-
-
-def test_merge_pairs_network_path_interpret():
-    rng = np.random.default_rng(19)
-    na, nb = 1024, 2048
-    a = np.sort(rng.integers(0, 64, size=na).astype(np.uint32))
-    b = np.sort(rng.integers(0, 64, size=nb).astype(np.uint32))
-    av = np.arange(na, dtype=np.int32)
-    bv = np.arange(na, na + nb, dtype=np.int32)
-    cfg = SortConfig(interpret=True)
-    ok, ov = merge_sorted_pairs(jnp.asarray(a), jnp.asarray(av),
-                                jnp.asarray(b), jnp.asarray(bv), config=cfg)
-    cat_k = np.concatenate([a, b])
-    cat_v = np.concatenate([av, bv])
-    perm = np.argsort(cat_k, kind="stable")
-    np.testing.assert_array_equal(np.asarray(ok), cat_k[perm])
-    np.testing.assert_array_equal(np.asarray(ov), cat_v[perm])
-
-
 # ------------------------------------------------------------------ histograms
 
 
@@ -223,6 +191,17 @@ def test_digit_histogram_u32(bits, begin):
     ref = np.bincount((x >> begin) & ((1 << bits) - 1), minlength=1 << bits)
     np.testing.assert_array_equal(np.asarray(got), ref)
     assert int(np.sum(np.asarray(got))) == len(x)
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_digit_histogram_widths(bits):
+    rng = np.random.default_rng(40 + bits)
+    n = (1 << 16) + 123
+    x = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    begin = 32 - bits - (bits % 3)
+    got = digit_histogram(jnp.asarray(x), begin_bit=begin, bits=bits)
+    ref = np.bincount((x >> begin) & ((1 << bits) - 1), minlength=1 << bits)
+    np.testing.assert_array_equal(np.asarray(got), ref)
 
 
 def test_digit_histogram_f32_twiddle_space():
